@@ -45,7 +45,9 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp
@@ -95,7 +97,7 @@ def main():
         return tot
 
     # resume: frequencies already in amplitude.dat are skipped (a retried
-    # run — flaky TPU backend — keeps its completed sweep points)
+    # run keeps its completed sweep points)
     done_omegas = set()
     rows = []
     if os.path.exists(amp_path):

@@ -38,8 +38,8 @@ def main():
     ap.add_argument("--cfl", type=float, default=0.5)
     ap.add_argument("--chunk", type=int, default=None,
                     help="steps per compiled chunk (default: auto — chunked "
-                         "above 1024 steps; the monolithic tau=18 adjoint "
-                         "transpose crashes the TPU compiler)")
+                         "above 1024 steps, where the monolithic tau=18 "
+                         "adjoint transpose crashed an earlier compiler)")
     ap.add_argument("--adj-tol-factor", type=float, default=1.0,
                     help="adjoint inner-solve tol scaling; 1.0 = exact "
                          "transpose of the forward program (best B-symmetry "
@@ -55,7 +55,9 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

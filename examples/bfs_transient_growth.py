@@ -31,7 +31,9 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -47,7 +47,7 @@ def main():
                     help="save the converged base flow u as .npz")
     ap.add_argument("--init-state", default=None,
                     help="start Newton from a saved state instead of BF.fld "
-                         "(the f32 TPU -> f64 CPU refinement path: the f64 "
+                         "(the f32 -> f64 refinement path: the f64 "
                          "run then needs only 1-2 Newton steps)")
     ap.add_argument("--maxiter", type=int, default=20)
     args = ap.parse_args()
@@ -58,7 +58,9 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

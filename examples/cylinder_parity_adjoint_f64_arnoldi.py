@@ -14,7 +14,7 @@ Method: f64 CPU Arnoldi (Krylov-Schur, krylov/eigs.py) on M* with
     preserves eigenvalues), so the certified adjoint value must reproduce
     the direct-side truth 1.0156835 (PARITY_r04_f64_truth.json);
   * inner tolerances vtol 1e-10 / ptol 1e-9 (the direct truth's);
-  * v0 = Re(w1_f32) from the TPU adjoint Arnoldi (--save-evec npz).
+  * v0 = Re(w1_f32) from the f32 adjoint Arnoldi (--save-evec npz).
 
 Certificate: residual_B < tol ==> |delta mu| <~ kappa * tol = 40 * tol.
 tol = 1.5e-6 gives 6e-5 < the 1e-4 band half-width.
@@ -59,7 +59,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Float64 refinement of the ADJOINT parity eigenvalue.
 
 Same method as cylinder_parity_refine.py but for the adjoint operator M*:
-the f32 TPU adjoint Arnoldi (cylinder_parity_adjoint.py --save-evec) leaves
+the f32 adjoint Arnoldi (cylinder_parity_adjoint.py --save-evec) leaves
 |mu1| ~1.6e-4 off the published band because the leading eigenvalue of this
 non-normal operator has condition number ~40 (biorthogonal overlap 0.025),
 which amplifies the f32 Ritz residual. Rayleigh-Ritz in FLOAT64 on
@@ -45,7 +45,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """FLOAT64 subspace-iteration certificate for the cylinder parity eigenvalue.
 
-The f32 TPU runs give |mu1| = 1.015667 (direct) / 1.015730 (adjoint) and the
+The f32 runs give |mu1| = 1.015667 (direct) / 1.015730 (adjoint) and the
 various one-shot f64 quotients disagree at the few-1e-5 level, so this
 script computes the discrete operator's leading pair in f64 to a CERTIFIED
 residual: subspace iteration V <- orth_B(M_f64 V) on the 2-dimensional real
@@ -46,7 +46,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

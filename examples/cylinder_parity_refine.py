@@ -1,6 +1,6 @@
 """Float64 refinement of the parity eigenvalue + f32-vs-f64 drift table.
 
-The full kdim=128 reference-condition Arnoldi runs in f32 on the TPU
+The full kdim=128 reference-condition Arnoldi runs in f32 on the device
 (cylinder_parity.py). This script re-converges the leading eigenpair in
 FLOAT64 on CPU by Rayleigh-Ritz on the subspace spanned by the f32
 eigenvector pair AND its image under the f64 operator:
@@ -45,7 +45,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -22,22 +22,28 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", default="medium", choices=["coarse", "medium", "fine"])
-    ap.add_argument("--platform", default=None, help="cpu to force CPU")
-    ap.add_argument("--f64", action="store_true")
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
+PRESETS = {
+    #          nel_r nel_t  rout order dt     spin  kdim nev
+    "coarse": (6, 14, 12.0, 4, 1.0e-2, 3000, 40, 2),
+    "medium": (8, 20, 20.0, 6, 5.0e-3, 8000, 64, 4),
+    "fine": (10, 28, 30.0, 7, 3.0e-3, 15000, 96, 4),
+}
 
-    import jax
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    if args.f64:
-        jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+def make_mesh(nel_r, nel_t, r_out, order, dtype):
+    """Annulus around the unit-diameter cylinder, velocity inflow and outflow
+    on the outer circle."""
+    from neklab_tpu.mesh.cylinder import annulus_mesh
 
+    return annulus_mesh(
+        nel_r, nel_t, r_in=0.5, r_out=r_out, order=order, grading=1.5,
+        outer_bc="vO", shift=0.25, dtype=dtype,
+    )
+
+
+def run(preset="medium", f64=False):
+    """Spin-up, Newton base flow and eigensolve; returns the result record.
+    preset: a PRESETS name or a tuple of the same fields."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -46,29 +52,20 @@ def main():
         newton_fixed_point_iteration,
     )
     from neklab_tpu.linops.exponential_propagator import ExponentialPropagator
-    from neklab_tpu.mesh.cylinder import annulus_mesh
     from neklab_tpu.models.linearized import LinConfig
     from neklab_tpu.models.navier_stokes import FlowConfig, advance, initial_state
     from neklab_tpu.models.precond import build_e_preconditioner
     from neklab_tpu.systems.fixed_point import FixedPointSystem
     from neklab_tpu.vectors import flow_vector, flow_vector_space
 
-    presets = {
-        #          nel_r nel_t  rout order dt     spin  kdim nev
-        "coarse": (6, 14, 12.0, 4, 1.0e-2, 3000, 40, 2),
-        "medium": (8, 20, 20.0, 6, 5.0e-3, 8000, 64, 4),
-        "fine": (10, 28, 30.0, 7, 3.0e-3, 15000, 96, 4),
-    }
-    nel_r, nel_t, r_out, order, dt, nspin, kdim, nev = presets[args.preset]
+    nel_r, nel_t, r_out, order, dt, nspin, kdim, nev = (
+        PRESETS[preset] if isinstance(preset, str) else preset)
 
-    dtype = jnp.float64 if args.f64 else jnp.float32
-    tols = dict(vtol=1e-10, ptol=1e-9) if args.f64 else dict(vtol=3e-6, ptol=3e-6)
+    dtype = jnp.float64 if f64 else jnp.float32
+    tols = dict(vtol=1e-10, ptol=1e-9) if f64 else dict(vtol=3e-6, ptol=3e-6)
 
     Re = 50.0
-    mesh = annulus_mesh(
-        nel_r, nel_t, r_in=0.5, r_out=r_out, order=order, grading=1.5,
-        outer_bc="vO", shift=0.25, dtype=dtype,
-    )
+    mesh = make_mesh(nel_r, nel_t, r_out, order, dtype)
     print(f"mesh: {mesh.nel} elements, order {order}, r_out {r_out}", flush=True)
     fc = FlowConfig(viscosity=1 / Re, dt=dt, **tols)
     cfg = LinConfig(flow=fc)
@@ -82,24 +79,27 @@ def main():
 
     t0 = time.time()
     st = advance(mesh, fc, st, nspin, ub=ub, pc_e=pc)
-    print(f"spin-up to t={float(st.time):.1f} in {time.time() - t0:.0f}s", flush=True)
+    spin_seconds = time.time() - t0
+    print(f"spin-up to t={float(st.time):.1f} in {spin_seconds:.0f}s", flush=True)
 
-    sys = FixedPointSystem(mesh, cfg, tau=0.5, ub=ub, dt=dt)
+    t0 = time.time()
+    system = FixedPointSystem(mesh, cfg, tau=0.5, ub=ub, dt=dt)
     space = flow_vector_space(mesh, 0)
-    newton_tol = 1e-8 if args.f64 else 2e-4
+    newton_tol = 1e-8 if f64 else 2e-4
     nres = newton_fixed_point_iteration(
-        sys, flow_vector(mesh, 0, u=st.u), space, tol=newton_tol, maxiter=15, gmres_kdim=30
+        system, flow_vector(mesh, 0, u=st.u), space, tol=newton_tol, maxiter=15, gmres_kdim=30
     )
+    newton_seconds = time.time() - t0
     print(f"newton: converged={nres.converged} |F|={nres.residual_norm:.3e}", flush=True)
 
     expA = ExponentialPropagator(mesh, cfg, nres.x["u"], tau=1.0, dt=dt)
-    eig_tol = 1e-7 if args.f64 else 1e-5
+    eig_tol = 1e-7 if f64 else 1e-5
     t0 = time.time()
     eres = linear_stability_analysis_fixed_point(
         expA, space, kdim=kdim, nev=nev, tol=eig_tol, maxiter=12
     )
-    out = {
-        "preset": args.preset,
+    return {
+        "preset": preset,
         "nel": mesh.nel,
         "order": order,
         "eigvals": [[v.real, v.imag] for v in eres.eigvals],
@@ -107,8 +107,33 @@ def main():
         "sigma": float(eres.eigvals[0].real),
         "omega": float(abs(eres.eigvals[0].imag)),
         "n_matvec": eres.n_matvec,
+        "newton_converged": bool(nres.converged),
+        "newton_residual": float(nres.residual_norm),
+        "spin_seconds": spin_seconds,
+        "newton_seconds": newton_seconds,
         "eigs_seconds": time.time() - t0,
     }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="medium", choices=sorted(PRESETS))
+    ap.add_argument("--platform", default=None, help="cpu to force CPU")
+    ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import jax
+
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
+    if args.f64:
+        jax.config.update("jax_enable_x64", True)
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    out = run(args.preset, f64=args.f64)
     print(json.dumps(out), flush=True)
     print(f"|mu1| = {out['mu1_abs']:.6f}  (oracle 1.0156 +- 1e-4)", flush=True)
     if args.out:

@@ -9,7 +9,7 @@ T0 = 5.158, BASELINE.md). Pipeline:
 
 Defaults are the REFERENCE conditions: Re=180, T0 ~ 5.158
 (/root/reference/examples/cylinder/newton/Re180_periodic_orbit/1cyl.usr:24).
-Parity recipe (f32 TPU Newton, then f64 CPU refinement to tol <= 1e-6):
+Parity recipe (f32 Newton, then f64 refinement to tol <= 1e-6):
 
   python examples/cylinder_upo.py --save-state upo_f32.npz --out UPO_f32.json
   python examples/cylinder_upo.py --platform cpu --f64 --init-state upo_f32.npz \
@@ -58,7 +58,9 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

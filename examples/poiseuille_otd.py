@@ -58,13 +58,16 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    # TPU matmuls default to bf16 inputs; over O(10^4) steps the truncation
-    # noise keeps re-exciting decayed directions and contaminates the
-    # SLOWEST OTD mode's Rayleigh quotient at the 1e-3 level (measured:
-    # Re=500 leading rate -0.00602 vs -0.00493 analytic; CPU f32 identical
-    # config matches to 3e-6). Full-f32 matmuls fix it; negligible cost at
-    # this problem size.
+    from neklab_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    # An f32 matmul at default precision may round its inputs (TF32 on the
+    # H100); over O(10^4) steps the truncation noise keeps re-exciting
+    # decayed directions and contaminates the SLOWEST OTD mode's Rayleigh
+    # quotient at the 1e-3 level (seen with bf16-rounded inputs at Re=500:
+    # leading rate -0.00602 vs -0.00493 analytic, where a CPU f32 run
+    # matches to 3e-6). Full-f32 matmuls fix it; negligible cost at this
+    # problem size.
     jax.config.update("jax_default_matmul_precision", "float32")
 
     import numpy as np

@@ -1,4 +1,4 @@
-"""neklab_tpu: TPU-native linear stability analysis for incompressible flows.
+"""neklab_tpu: JAX linear stability analysis for incompressible flows.
 
 A from-scratch JAX/XLA framework with the capabilities of nekStab/neklab:
 matrix-free exponential-propagator matvecs by time-stepping the linearized
@@ -6,7 +6,7 @@ matrix-free exponential-propagator matvecs by time-stepping the linearized
 tensor-product kernels, Krylov-Schur/Arnoldi eigensolvers, Lanczos SVD
 transient growth, GMRES resolvent analysis, Newton-Krylov base flows and
 periodic orbits (Floquet), and OTD mode evolution — elements sharded across
-TPU chips, Krylov reductions as psums.
+devices, Krylov reductions as psums.
 
 This facade mirrors /root/reference/src/neklab.f90 (`use neklab` re-exports
 the LightKrylov algorithms plus every neklab type and driver).

@@ -11,10 +11,12 @@ application layer (e.g. the mass-weighted SEM dot that ignores pressure and
 history slots, mirroring /root/reference/src/vectors/real_vectors.f90:208-233)
 and must itself contain whatever `psum` the sharding needs.
 
-TPU-first detail: a Krylov basis is stored as ONE stacked pytree (leading axis
-kmax) so that CGS2 orthogonalization is two batched Gram matvecs per step —
-single jitted calls that XLA maps onto the MXU — instead of O(k) scalar dot
-kernels per iteration.
+A Krylov basis is stored as ONE stacked pytree (leading axis kmax) so that
+CGS2 orthogonalization is two batched Gram matvecs per step — single jitted
+calls — instead of O(k) scalar dot kernels per iteration. The basis
+contractions state precision="highest": an f32 contraction left at the
+default may run in TF32 on the H100, and the orthogonality lost there would
+corrupt every Ritz value.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ class VectorSpace:
         def _ortho_pass(stack, w, mask):
             h = self._vdot_raw(stack, w) * mask
             w = jax.tree_util.tree_map(
-                lambda s, wi: wi - jnp.tensordot(h, s, axes=(0, 0)), stack, w
+                lambda s, wi: wi - jnp.tensordot(h, s, axes=(0, 0), precision="highest"), stack, w
             )
             return w, h
 
@@ -95,7 +97,8 @@ class VectorSpace:
         )
         self._jit_get = jax.jit(lambda stack, k: jax.tree_util.tree_map(lambda s: s[k], stack))
         self._jit_lincomb = jax.jit(
-            lambda stack, c: jax.tree_util.tree_map(lambda s: jnp.tensordot(c, s, axes=(0, 0)), stack)
+            lambda stack, c: jax.tree_util.tree_map(
+                lambda s: jnp.tensordot(c, s, axes=(0, 0), precision="highest"), stack)
         )
 
     def dot(self, x: Vector, y: Vector) -> float:
@@ -170,9 +173,9 @@ class KrylovBasis:
         """sum_j coeffs[j] V_j (coeffs len k; may be complex).
 
         Complex coefficients are handled as two REAL device lincombs over the
-        (real) basis, combined host-side into complex numpy leaves — TPU
-        backends do not implement complex matmul/tensordot, and complex
-        eigenvectors are terminal outputs (outposting/diagnostics) anyway.
+        (real) basis, combined host-side into complex numpy leaves (a choice
+        made for an accelerator without a complex dtype, kept because complex
+        eigenvectors are terminal outputs: outposting and diagnostics).
         """
         if np.iscomplexobj(coeffs):
             vr = self.lincomb(np.ascontiguousarray(coeffs.real))
@@ -198,7 +201,7 @@ class KrylovBasis:
         new_stack = jax.tree_util.tree_map(
             lambda s: jnp.concatenate(
                 [
-                    jnp.tensordot(c, s, axes=(0, 0)),
+                    jnp.tensordot(c, s, axes=(0, 0), precision="highest"),
                     jnp.zeros((self.kmax - p,) + s.shape[1:], s.dtype),
                 ],
                 axis=0,

@@ -36,11 +36,12 @@ from ..utils.timestep import cfl_dt, horizon_steps
 
 # Horizons beyond this many steps are propagated in bounded-size compiled
 # chunks: the monolithic scan compiles fine forward, but its linear_transpose
-# at O(10^3) steps is a program the TPU compiler demonstrably cannot handle
-# (the BFS tau=18 adjoint at 2611 steps crashed the worker 4/4 times during
-# compilation, round 4). Chunk composition is exactly equal to the monolithic
-# map (same step sequence), and the chain of chunk transposes is its exact
-# adjoint — so the switch is purely a compile-size decision.
+# at O(10^3) steps crashed the earlier accelerator's compiler (the BFS
+# tau=18 adjoint at 2611 steps). The thresholds were chosen there and are not
+# measured on the H100.
+# Chunk composition is exactly equal to the monolithic map (same step
+# sequence), and the chain of chunk transposes is its exact adjoint — so the
+# switch is purely a compile-size decision.
 DEFAULT_CHUNK_THRESHOLD = 1024
 DEFAULT_CHUNK = 512
 
@@ -75,7 +76,7 @@ class ExponentialPropagator(LinearOperator):
         chunk: steps per compiled chunk. None (default) auto-selects: the
         monolithic single-program path for short horizons, DEFAULT_CHUNK-step
         chunks once nsteps exceeds DEFAULT_CHUNK_THRESHOLD (bounds the
-        transposed-program size the TPU compiler must handle). 0 forces the
+        transposed-program size the compiler must handle). 0 forces the
         monolithic path; any positive value forces that chunk size.
 
         recycle: if > 0, the FORWARD matvec deflates each step's E solve

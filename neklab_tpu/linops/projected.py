@@ -9,8 +9,8 @@ streamwise plane averaging, before AND after the time integration:
 Reference parity: `exptA_proj_linop`
 (/root/reference/src/linops/exponential_propagator_proj.f90): cv/sv basis +
 `gtpp_gs_setup`/`planar_avg` tensor-product-plane reduction, proj_alpha
-(:135-173). TPU-native: on a structured box mesh the plane average is a
-weighted einsum over the (element-x, node-x) axes — a pure on-chip reduction
+(:135-173). Here, on a structured box mesh the plane average is a
+weighted einsum over the (element-x, node-x) axes — a pure device reduction
 (sharded meshes: XLA inserts the psum over the element axis).
 """
 
@@ -70,11 +70,12 @@ class ProjectedPropagator(LinearOperator):
         """[..., j, i, nel] -> projection onto the alpha mode (same shape)."""
         lead = f.shape[:-3]
         g = f.reshape(lead + self.shape_el)
-        a = jnp.einsum("...jiyx,xi,jiyx->...jy", g, self.wx, self.cv) / self.cnorm
-        rec = jnp.einsum("...jy,jiyx->...jiyx", a, self.cv)
+        hi = precision="highest"
+        a = jnp.einsum("...jiyx,xi,jiyx->...jy", g, self.wx, self.cv, precision=hi) / self.cnorm
+        rec = jnp.einsum("...jy,jiyx->...jiyx", a, self.cv, precision=hi)
         if self.alpha != 0.0:
-            b = jnp.einsum("...jiyx,xi,jiyx->...jy", g, self.wx, self.sv) / self.cnorm
-            rec = rec + jnp.einsum("...jy,jiyx->...jiyx", b, self.sv)
+            b = jnp.einsum("...jiyx,xi,jiyx->...jy", g, self.wx, self.sv, precision=hi) / self.cnorm
+            rec = rec + jnp.einsum("...jy,jiyx->...jiyx", b, self.sv, precision=hi)
         return rec.reshape(f.shape)
 
     def _project(self, v: dict) -> dict:

@@ -58,8 +58,9 @@ class SemMesh:
     # face-pair exchange schedule for UNSTRUCTURED conforming 2-D meshes
     # (None on structured/3-D meshes): partner face-column gather indices,
     # orientation flips, interior mask, and compact vertex ids — see
-    # ops.sem._dssum_facepair. Gathering only the face strips is ~5x cheaper
-    # on TPU than the general global scatter-add (gathers cost ~1 elem/cycle).
+    # ops.sem._dssum_facepair. Gathering only the face strips was cheaper
+    # than the general global scatter-add on the earlier accelerator (not
+    # measured on the H100).
     fp_pidx: jnp.ndarray | None = None  # int32 [4*nel] partner flat face index
     fp_flip: jnp.ndarray | None = None  # bool [4*nel] partner runs reversed
     fp_mask: jnp.ndarray | None = None  # [4*nel] 1.0 interior face, 0.0 boundary
@@ -70,9 +71,9 @@ class SemMesh:
     eperm: jnp.ndarray | None = None  # int32 [nel]
     # roll-decomposed exchange plans (see _roll_plan): mapped-multiblock
     # meshes pair >90% of faces at a few constant index offsets, so the
-    # face/vertex gathers (the TPU dssum bottleneck: arbitrary gathers run
-    # ~50 cycles/index) become masked rolls XLA fuses into shifted reads,
-    # plus a tiny remainder gather/scatter. Offsets are STATIC (meta).
+    # face/vertex gathers (the dssum bottleneck on the earlier accelerator;
+    # not measured on the H100) become masked rolls XLA fuses into shifted
+    # reads, plus a tiny remainder gather/scatter. Offsets are STATIC (meta).
     fp_roll_mask: jnp.ndarray | None = None  # [Ke, 4*nel]
     fp_rem_dst: jnp.ndarray | None = None  # int32 [Re]
     fp_rem_src: jnp.ndarray | None = None  # int32 [Re]
@@ -112,7 +113,7 @@ def build_mesh(
     """Finalize host-side geometry + connectivity into a device SemMesh.
 
     Inputs use the builder-friendly ELEMENT-FIRST layout ([.., nel, pts..]);
-    the stored device arrays are transposed to the TPU-friendly ELEMENT-LAST
+    the stored device arrays are transposed to the ELEMENT-LAST
     layout ([.., pts.., nel]) — see ops/tensor.py.
     """
     ndim = geom.ndim
@@ -253,8 +254,9 @@ def _roll_plan(idx: np.ndarray, length: int, kmax: int = 32, min_count: int = 8)
 
     Mapped-multiblock meshes concentrate >90% of face/vertex partners on a
     handful of offsets (measured: 20 offsets cover 98% of the reference
-    1cyl mesh), so this turns the TPU-hostile arbitrary gather into fused
-    shifted reads. Returns (offsets tuple, masks [K, length] f64,
+    1cyl mesh), so this turns the arbitrary gather into fused shifted
+    reads (chosen before the port to the H100; not measured there).
+    Returns (offsets tuple, masks [K, length] f64,
     rem_dst int32, rem_src int32)."""
     idx = np.asarray(idx)
     j = np.arange(len(idx))

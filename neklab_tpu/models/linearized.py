@@ -467,10 +467,9 @@ def propagate_chunk(mesh: SemMesh, cfg: LinConfig, base_u, base_theta,
                     pc_e=None, vdiag=None, tdiags=None) -> PertState:
     """nsteps of the linearized solver on a FULL PertState (BDF ramp only
     when `ramp`). Chunking rationale: a single monolithic scan over O(10^3)
-    steps compiles fine FORWARD, but its linear_transpose is a program the
-    TPU compiler demonstrably cannot handle at production sizes (the BFS
-    tau=18 adjoint at 2611 steps reliably crashed the worker during
-    compilation, 4/4 attempts). Chunks bound the compiled program size; the
+    steps compiles fine FORWARD, but its linear_transpose at production
+    sizes crashed the earlier accelerator's compiler (the BFS tau=18
+    adjoint at 2611 steps; not measured on the H100). Chunks bound the compiled program size; the
     full map is the chunk composition and its adjoint the reversed chain of
     chunk transposes (exactly equal — the map is linear)."""
     fc = cfg.flow

@@ -207,9 +207,9 @@ def _basis_project(basis, rhs):
     X, AX, _ = basis
     Xc = lax.stop_gradient(X)
     AXc = lax.stop_gradient(AX)
-    alpha = jnp.einsum("k...,...->k", Xc, rhs)
-    xbar = jnp.einsum("k,k...->...", alpha, Xc)
-    return xbar, rhs - jnp.einsum("k,k...->...", alpha, AXc)
+    alpha = jnp.einsum("k...,...->k", Xc, rhs, precision="highest")
+    xbar = jnp.einsum("k,k...->...", alpha, Xc, precision="highest")
+    return xbar, rhs - jnp.einsum("k,k...->...", alpha, AXc, precision="highest")
 
 
 def _basis_update(basis, delta, adelta, rtol):
@@ -226,9 +226,9 @@ def _basis_update(basis, delta, adelta, rtol):
     k = X.shape[0]
     delta = lax.stop_gradient(delta)
     adelta = lax.stop_gradient(adelta)
-    beta = jnp.einsum("k...,...->k", X, adelta)
-    d = delta - jnp.einsum("k,k...->...", beta, X)
-    ad = adelta - jnp.einsum("k,k...->...", beta, AX)
+    beta = jnp.einsum("k...,...->k", X, adelta, precision="highest")
+    d = delta - jnp.einsum("k,k...->...", beta, X, precision="highest")
+    ad = adelta - jnp.einsum("k,k...->...", beta, AX, precision="highest")
     nrm2 = jnp.sum(d * ad)
     d2 = jnp.sum(d * d)
     ok = nrm2 > 100.0 * jnp.sqrt(d2) * rtol

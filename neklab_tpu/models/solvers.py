@@ -31,6 +31,14 @@ def _tree_dot(x, y):
     )
 
 
+def _guarded_div(a, b):
+    """a / b with b floored at the smallest normal number of its dtype: a
+    CG that has reached its floating-point floor (rz or p.Ap == 0) takes a
+    zero step instead of producing 0/0. A literal such as 1e-300 would
+    round to 0 in f32 and guard nothing."""
+    return a / jnp.maximum(b, jnp.finfo(b.dtype).tiny)
+
+
 def pcg(
     op: Callable,
     b,
@@ -63,12 +71,12 @@ def pcg(
         x, r, z, p, rr, k = state
         ap = op(p)
         rz = _tree_dot(r, z)
-        alpha = rz / jnp.maximum(_tree_dot(p, ap), 1e-300)
+        alpha = _guarded_div(rz, _tree_dot(p, ap))
         x = jax.tree_util.tree_map(lambda xi, pi: xi + alpha * pi, x, p)
         r = jax.tree_util.tree_map(lambda ri, ai: ri - alpha * ai, r, ap)
         z = precond(r)
         rz_new = _tree_dot(r, z)
-        beta = rz_new / jnp.maximum(rz, 1e-300)
+        beta = _guarded_div(rz_new, rz)
         p = jax.tree_util.tree_map(lambda zi, pi: zi + beta * pi, z, p)
         rr = _tree_dot(r, r)
         return (x, r, z, p, rr, k + 1)
@@ -105,12 +113,12 @@ def pcg_info(
         x, r, z, p, rr, k = state
         ap = op(p)
         rz = _tree_dot(r, z)
-        alpha = rz / jnp.maximum(_tree_dot(p, ap), 1e-300)
+        alpha = _guarded_div(rz, _tree_dot(p, ap))
         x = jax.tree_util.tree_map(lambda xi, pi: xi + alpha * pi, x, p)
         r = jax.tree_util.tree_map(lambda ri, ai: ri - alpha * ai, r, ap)
         z = precond(r)
         rz_new = _tree_dot(r, z)
-        beta = rz_new / jnp.maximum(rz, 1e-300)
+        beta = _guarded_div(rz_new, rz)
         p = jax.tree_util.tree_map(lambda zi, pi: zi + beta * pi, z, p)
         return (x, r, z, p, _tree_dot(r, r), k + 1)
 

@@ -1,7 +1,9 @@
 """ctypes bindings for the native (C++) mesh-preprocessing library.
 
-Compiled on first use with g++ (cached next to the source); every entry point
-has a pure-Python fallback so the package works without a toolchain.
+Compiled from the committed source on first use with g++, for whatever host
+runs it (no host-specific instruction set), and cached next to the source;
+every entry point has a pure-Python fallback so the package works without a
+toolchain.
 """
 
 from __future__ import annotations
@@ -27,11 +29,15 @@ def _load():
     _tried = True
     try:
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+            # build beside the target and rename, so processes that build at
+            # the same time never load a half-written library
+            tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _SO, _SRC],
+                ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, _SO)
         lib = ctypes.CDLL(_SO)
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

@@ -1,6 +1,6 @@
 // neklab_tpu native mesh-preprocessing library.
 //
-// The TPU-native counterpart of the reference stack's C-level mesh machinery
+// The counterpart of the reference stack's C-level mesh machinery
 // (gslib gather-scatter setup, genmap partitioning — SURVEY section 2.2):
 // everything here is host-side preprocessing whose cost scales with element
 // count and which the Python fallbacks handle too slowly at production mesh

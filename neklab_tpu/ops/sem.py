@@ -62,9 +62,9 @@ def dssum(mesh: SemMesh, f: jnp.ndarray) -> jnp.ndarray:
 
     Equivalent of Nek5000 `dssum`/`opdssum` via gslib (SURVEY section 2.2).
     Structured (box/annulus) meshes use the scatter-free factorized face
-    exchange — pure rolls/slices, which XLA maps onto the TPU far better
-    than a gather/scatter into the global-DOF array; unstructured meshes
-    fall back to the general scatter path.
+    exchange — pure rolls/slices instead of a gather/scatter into the
+    global-DOF array (chosen before the port to the H100; not measured
+    there); unstructured meshes fall back to the general scatter path.
     """
     if f.size == 0:  # zero-size leading axes (e.g. nscal=0 scalar stacks)
         return f
@@ -91,8 +91,9 @@ def _dssum_facepair(mesh: SemMesh, f: jnp.ndarray) -> jnp.ndarray:
     (arbitrary multiplicity) are summed by sibling-copy gathers over the
     [4*nel] corner vector (zero-padded), so the whole exchange is
     gather/slice arithmetic with no scatters. Gathers touch only the face
-    strips, which on TPU (~1 gathered element/cycle) is far cheaper than the
-    global scatter-add fallback below.
+    strips instead of the whole field, unlike the global scatter-add
+    fallback below (chosen before the port to the H100; not measured
+    there).
     """
     import numpy as np  # static constants only
 
@@ -107,7 +108,8 @@ def _dssum_facepair(mesh: SemMesh, f: jnp.ndarray) -> jnp.ndarray:
     if mesh.fp_roll_mask is not None and len(mesh.fp_roll_off):
         # roll-decomposed permutation (mesh/core.py:_roll_plan): a handful of
         # masked shifted reads that XLA fuses, instead of an arbitrary gather
-        # (~50 cycles/index on TPU). The small remainder is a column scatter.
+        # (chosen before the port to the H100; not measured there). The
+        # small remainder is a column scatter.
         P = None
         for k, d in enumerate(mesh.fp_roll_off):
             term = mesh.fp_roll_mask[k] * jnp.roll(Gf, -d, axis=-1)
@@ -251,8 +253,8 @@ def grad(mesh: SemMesh, u: jnp.ndarray) -> jnp.ndarray:
 
     du/dx_j = sum_a rx[a, j] * du/dr_a. The metric contraction is unrolled
     (scalar-indexed products) rather than an einsum over a freshly stacked
-    axis: stacked-operand einsums block XLA's elementwise fusion on TPU and
-    cost ~27x in the Helmholtz chain.
+    axis: stacked-operand einsums blocked XLA's elementwise fusion on the
+    earlier accelerator (not measured on the H100).
     """
     durst = grad_rst(u, _d(mesh), mesh.ndim)
     return jnp.stack(

@@ -4,11 +4,10 @@ Field convention (throughout the framework) — ELEMENT-LAST layout:
   2-D: f[..., s, r, nel]
   3-D: f[..., t, s, r, nel]
 
-The element axis sits last so it maps onto the TPU's 128-wide lane dimension:
-every per-element operation vectorizes across elements, and a 1-D operator
-A[m, n] applied along a reference axis is a small-M GEMM with a huge N
-(n * nel), which XLA tiles onto the MXU. Measured ~4x faster than the
-element-first layout for the Helmholtz chain on TPU v5e.
+The element axis sits last so every per-element operation vectorizes across
+elements, and a 1-D operator A[m, n] applied along a reference axis is a
+small-M GEMM with a huge N (n * nel). This layout was chosen before the
+port to the H100 and has not been measured there.
 """
 
 from __future__ import annotations
@@ -16,12 +15,13 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 # Contraction precision: "highest" guarantees fp32-exact matmuls (needed for
-# the f64 CPU oracle suite); TPU f32 production runs can set "default" for
-# fast bf16-accumulated MXU paths via set_precision().
+# the f64 oracle suite and for f32 Krylov work).
 PRECISION = "highest"
 
 
 def set_precision(p: str) -> None:
+    # "default" lets an f32 contraction run in TF32 on the H100 (about three
+    # decimal digits), which the inner solves' tolerances do not survive.
     global PRECISION
     PRECISION = p
 
@@ -50,13 +50,12 @@ _APPLY = (apply_r, apply_s, apply_t)
 # 3-D: optionally Kronecker-folded contractions.
 #
 # A per-axis apply on a 3-D field [..., t, s, r, e] as a batched [n x n]
-# matmul has M = K = n (~8): the MXU runs at <1% utilization. Folding the
+# matmul has M = K = n (~8), far below a matrix unit's tile. Folding the
 # operator into I (x) a (x) I and flattening the point axes turns every
 # apply into ONE [n^3 x n^3]-by-[n^3, e] matmul (M = K = 512 at order 7) —
-# 8x the FLOPs for full MXU shapes. Whether that trade wins is HARDWARE
-# dependent: on a full-strength MXU it does; on flop-constrained parts the
-# fused small-einsum path is faster (measured 53 vs 71 ms/step on the
-# current chip). Default off; flip with set_kron3d(True) on big-MXU targets.
+# 8x the FLOPs for matrix-unit-sized shapes. Whether that trade wins is
+# hardware dependent. Default off (the fused small-einsum path won on the
+# earlier accelerator; not measured on the H100); flip with set_kron3d(True).
 # ---------------------------------------------------------------------------
 
 KRON3D = False

@@ -98,7 +98,7 @@ def orthonormalize_states(mesh: SemMesh, states: PertState) -> PertState:
     g = _mass_dots(mesh, states.u, states.u)
     l = jnp.linalg.cholesky(g)
     linv = jax.scipy.linalg.solve_triangular(l, jnp.eye(g.shape[0], dtype=g.dtype), lower=True)
-    rotate = lambda leaf: jnp.einsum("ij,j...->i...", linv, leaf)
+    rotate = lambda leaf: jnp.einsum("ij,j...->i...", linv, leaf, precision="highest")
     return jax.tree_util.tree_map(rotate, states)
 
 
@@ -148,7 +148,7 @@ def otd_chunk(
     def do_step(b, ps, order):
         lu = lu_all(b.u, b.theta, ps)
         lr = _mass_dots(mesh, ps.u, lu)
-        forces = -jnp.einsum("ji,j...->i...", lr, ps.u)
+        forces = -jnp.einsum("ji,j...->i...", lr, ps.u, precision="highest")
         emap = emap_for(b.u, b.theta)
         step_fn = lambda s, f: step_lin(
             mesh, cfg, s, b.u, b.theta, order=order, force=f, vdiag=vdiag, pc_e=pc_e,

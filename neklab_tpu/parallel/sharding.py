@@ -1,7 +1,7 @@
 """SPMD element partitioning over a JAX device mesh.
 
 The reference's single parallelism strategy is MPI domain decomposition of
-spectral elements (SURVEY section 2.3). The TPU-native counterpart: one mesh
+spectral elements (SURVEY section 2.3). The counterpart here: one mesh
 axis 'e', every field sharded along its element axis, all cross-element
 communication (dssum scatter/gather, global-DOF CG vectors, mass-dot psums)
 emitted by XLA's SPMD partitioner from these shardings:
@@ -11,8 +11,9 @@ emitted by XLA's SPMD partitioner from these shardings:
     (correct everywhere; the halo-exchange optimized path rides on top);
   * Krylov dots: psum — the reference's glsc3 allreduce.
 
-Multi-host: the same program under jax.distributed with the 'e' axis spanning
-all chips (ICI within host, DCN across) — nothing here changes.
+The device mesh is a flat list of devices (on one host the cards are joined
+all to all). Multi-host: the same program under jax.distributed with the 'e'
+axis spanning every device of every process — nothing here changes.
 """
 
 from __future__ import annotations
@@ -109,11 +110,12 @@ def init_distributed(
 ) -> Mesh:
     """Multi-host SPMD entry point (SURVEY section 7 stage 7).
 
-    Calls jax.distributed.initialize (env-driven on TPU pods when no
-    arguments are given — the launcher sets everything), then builds the
-    global 'e' mesh over ALL devices: the same single-axis element partition,
-    with XLA routing face-exchange/psum collectives over ICI within a host
-    and DCN across hosts. This is the analog of the reference's
+    Calls jax.distributed.initialize with the coordinator address, process
+    count and this process's id (a plain GPU host provides no cluster
+    environment, so all three are needed there), then builds the global 'e'
+    mesh over ALL devices: the same single-axis element partition, with XLA
+    emitting the face-exchange/psum collectives across devices and hosts.
+    This is the analog of the reference's
     `mpiexec -np N nek5000` scale-out — the compiled program is identical
     to the single-host one.
     """

@@ -6,7 +6,7 @@ bordered Jacobian:
   J (dx, dT) = ( (dPhi_T/dX) dx - dx + (dPhi/dT) dT,  <dx, f(X)>_B )
 
 Reference parity: `nek_upo_system`/`nek_upo_jacobian` + jac_direct/adjoint_map
-(/root/reference/src/systems/periodic_orbit.f90). TPU-native upgrades:
+(/root/reference/src/systems/periodic_orbit.f90). Departures from it:
   * (dPhi/dX) dx and dPhi/dT come from ONE jax.jvp through the nonlinear
     integration (exact discrete monodromy with co-evolving base flow and
     exact period derivative — the reference needs solve_baseflow=.true.

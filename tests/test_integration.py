@@ -1,7 +1,7 @@
 """End-to-end integration tests (the reference's neklabTests.py analog).
 
 Run the example cases as subprocesses and check physical oracles with
-delayed assertions. These are EXPENSIVE (minutes each on a TPU, much longer
+delayed assertions. These are EXPENSIVE (minutes each on a GPU, much longer
 on CPU), so — like the reference's opt-in `python neklabTests.py` suite —
 they only run when NEKLAB_INTEGRATION is set:
 
@@ -119,9 +119,8 @@ class PoiseuilleOTDSteady(NeklabTPUTestCase):
     examples/poiseuille/OTD_steady, poiseuille.usr:128-161): eig(Lr) must
     converge to the analytically known leading rates. The oracle runs at
     Re=500 where the r=2 / rest spectral gap (0.0247) makes t=200 fully
-    converged; the committed OTD_r04.json artifact additionally records the
-    reference-condition Re=5000 run (gap 2.2e-4 — not separable in t=200 for
-    anyone, including the reference)."""
+    converged; at the reference condition Re=5000 the gap is 2.2e-4, not
+    separable in t=200 for anyone, including the reference."""
 
     def test_otd_spectrum_matches_leading_modes(self):
         res = self.run_example(

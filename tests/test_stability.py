@@ -125,7 +125,7 @@ def test_chunked_propagator_matches_and_adjoint_identity():
     """propagate_chunked == propagate exactly (same step composition), and
     its chain-transposed adjoint satisfies <Mu, v>_B = <u, M*v>_B — the
     bounded-compile path for long horizons (the BFS tau=18 adjoint at 2611
-    steps crashes the TPU compiler as ONE program; chunks are the fix)."""
+    steps crashed an earlier compiler as ONE program; chunks are the fix)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
